@@ -1,6 +1,6 @@
-"""agp_tpu: TPU-native augmented Gaussian-process inference engine.
+"""agp_tpu: augmented Gaussian-process inference engine.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 AugmentedGaussianProcesses.jl (reference mounted at /root/reference):
 sparse/full variational GPs over non-conjugate likelihoods made
 conditionally conjugate by Polya-Gamma / inverse-Gamma / GIG data

@@ -1,4 +1,4 @@
-"""Global numeric configuration for the TPU-native augmented-GP engine.
+"""Global numeric configuration for the augmented-GP engine.
 
 Mirrors the dtype-scaled jitter policy of the reference
 (/root/reference/src/functions/utils.jl:4-13) but is otherwise an independent,

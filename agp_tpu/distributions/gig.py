@@ -4,7 +4,7 @@ The reference implements three scalar rejection regimes (Hormann-Leydold:
 concave-envelope, ratio-of-uniforms, shifted RoU with a Cardano cubic;
 /root/reference/src/ComplementaryDistributions/generalizedinversegaussian.jl:58-164).
 
-TPU-native design -- everything elementwise, one masked `lax.while_loop`
+Design -- everything elementwise, one masked `lax.while_loop`
 over the whole batch:
 
 * |p| = 1/2 keeps the exact rejection-FREE route via the inverse-Gaussian

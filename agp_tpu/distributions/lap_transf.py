@@ -7,7 +7,7 @@ E[exp(-s omega)] of p is available (the reference uses Ridout '09 +
 Bromwich inversion, /root/reference/src/ComplementaryDistributions/
 lap_transf_dist.jl:5-189).
 
-TPU-native design: instead of scalar rejection with contour integrals, we
+Design: instead of scalar rejection with contour integrals, we
 (1) invert the transform on a fixed log-grid with the **Gaver-Stehfest**
 algorithm -- real-valued, so any jnp-traceable phi works, no complex
 arithmetic; (2) tilt + normalize the grid density; (3) draw by inverse-CDF

@@ -6,7 +6,7 @@ alternating-series rejection sampler, scalar with data-dependent loops
 general b by decomposition: integer part = sum of PG(1, z) draws, fractional
 part via a truncated Gamma convolution series (polyagamma.jl:169-177).
 
-TPU-native design (no scalar loops, everything elementwise on the VPU):
+Design (no scalar loops, everything elementwise):
 
 * `sample_pg1(key, c)` -- exact PSW sampler as ONE masked `lax.while_loop`
   over the whole batch: each trip every not-yet-accepted lane draws one

@@ -1,8 +1,8 @@
 """Inducing-point selection algorithms.
 
 The reference outsources these to InducingPoints.jl (KmeansAlg, OIPS,
-UniGrid, online updateZ; re-exported API, SURVEY.md section 1).  The TPU
-build internalizes equivalents:
+UniGrid, online updateZ; re-exported API, SURVEY.md section 1).  This
+package internalizes equivalents:
 
 * offline selection (`inducingpoints`) runs host-side (numpy) once, before
   training -- it is setup code, not hot-path;

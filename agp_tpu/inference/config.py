@@ -1,8 +1,8 @@
 """Inference-engine configurations.
 
 The reference's inference objects mix static configuration with mutable
-iteration state (/root/reference/src/inference/inference.jl).  TPU-native
-split: everything here is *static* (hashable Python dataclasses used as jit
+iteration state (reference: src/inference/inference.jl).  Here the
+split is: everything here is *static* (hashable Python dataclasses used as jit
 constants); the dynamic parts (rho, iteration counter, optimizer states,
 local variables) live in the TrainState pytree.
 """
@@ -47,12 +47,7 @@ class AnalyticVI(InferenceConfig):
     n-row tiles (default n=64, halved until it divides b) -- the same
     bytes as "gather" in n-times fewer, larger transactions (a block
     bootstrap: tiles are iid samples of n exchangeable rows; requires
-    batchsize % n == 0, else falls back to "gather").  Measured v5e at
-    the flagship shape through the production driver (tile views AND draw
-    RNG hoisted out of the step scan; GATHER_MODES.json round 5): gather
-    16.0k, block32 48.0k, block64 58.9k, block128 61.7k, slice 57.9k
-    iters/s -- block64+ beats even slice, so "block" is both the
-    statistically-honest AND the fastest minibatching mode."""
+    batchsize % n == 0, else falls back to "gather")."""
 
     stochastic: bool = False
     batchsize: int = 0
@@ -138,7 +133,8 @@ class GibbsSampling(InferenceConfig):
 
     solver: global-resample algorithm -- "chol" (exact O(N^3) Cholesky,
     the reference's), "cg" (matmul-only whitened perturb-and-solve CG;
-    exact up to 1e-6 solver tolerance), "auto" (cg on TPU for N >= 1024)."""
+    exact up to 1e-5 solver tolerance), "auto" (cg for N >= 1024, on every
+    device; see inference/gibbs.py::CG_MIN_N)."""
 
     stochastic: bool = False
     batchsize: int = 0

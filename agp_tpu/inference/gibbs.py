@@ -1,6 +1,6 @@
 """Blocked Gibbs sampling with augmented variables.
 
-TPU-native equivalent of /root/reference/src/inference/gibbssampling.jl +
+JAX equivalent of the reference's src/inference/gibbssampling.jl +
 training/sampling.jl: the whole chain runs inside one `lax.scan` -- no
 host round-trips between steps -- with vectorized Polya-Gamma / GIG /
 Poisson draws replacing the reference's scalar rejection samplers.
@@ -19,21 +19,24 @@ from ..means import batch_call
 from ..ops import linalg
 
 
+# Smallest N for which "auto" takes the CG resample; on an H100 it ran
+# several times as many sweeps/s as the Cholesky resample (PERF.md).
+CG_MIN_N = 1024
+
+
 def _use_cg_solver(model) -> bool:
     """Global-resample solver policy.  "chol": exact O(N^3) Cholesky per
     sweep (the reference's algorithm).  "cg": matmul-only whitened
     perturb-and-solve (Papandreou-Yuille / Parker-Fox style) -- an exact
     sampler up to CG tolerance whose per-sweep cost is O(#iters * N^2)
-    MXU matmuls instead of a sequential N^3 factorization.  "auto": cg on
-    TPU backends for N >= 1024."""
+    matvecs instead of a sequential N^3 factorization.  "auto": cg for
+    N >= CG_MIN_N, on every device."""
     solver = getattr(model.inference, "solver", "auto")
     if solver == "cg":
         return True
     if solver == "chol":
         return False
-    from ..ops import pallas_kernels as pk
-
-    return pk.available() and model.train_x.shape[0] >= 1024
+    return CG_MIN_N is not None and model.train_x.shape[0] >= CG_MIN_N
 
 
 def gibbs_step(model, kmat, mu0, key, f, local_vars):
@@ -63,8 +66,8 @@ def gibbs_step(model, kmat, mu0, key, f, local_vars):
         # and n is EXACTLY samplable by construction:
         #   n = L_K^T sqrt(D) xi1 + xi2,  xi1, xi2 ~ N(0, I).
         # Then h ~ N(A^-1 L_K^T b, A^-1) and f = L_K h has the target law
-        # (L_K A^-1 L_K^T = Q^-1).  Every operation is a dense matvec on
-        # the MXU; CG tolerance 1e-6 relative puts the solver bias far
+        # (L_K A^-1 L_K^T = Q^-1).  Every operation is a dense matvec;
+        # CG tolerance 1e-6 relative puts the solver bias far
         # below Monte-Carlo error.
         D = 2.0 * gs_l
         b = gmu_l + Kinv_l @ mu0_l

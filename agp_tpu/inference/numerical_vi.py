@@ -1,10 +1,10 @@
 """Numerical VI: Opper-Archambeau gradients of E[log p(y|f)] via
 Gauss-Hermite quadrature or Monte-Carlo integration.
 
-TPU-native re-design of /root/reference/src/inference/numericalVI.jl,
+JAX re-design of the reference's src/inference/numericalVI.jl,
 quadratureVI.jl and MCVI.jl:
   * the per-point expectations are [B, nodes] / [S, L, B] broadcasts fused
-    by XLA (VPU), with `jax.grad` supplying d log p / d f where the
+    by XLA, with `jax.grad` supplying d log p / d f where the
     reference used hand-derived or ForwardDiff fallbacks;
   * the PSD-safeguarded covariance update (numericalVI.jl:158-179) becomes
     a bounded `lax.while_loop` halving alpha until Cholesky succeeds.

@@ -5,7 +5,7 @@ matrix-valued-kernel SVGD is PAPERS.md material).  Particles live in the
 whitened space v (f = mu0 + L_K v), so the target is
 log p(v) = sum log p(y | f(v)) - |v|^2/2 and the SVGD kernel acts in a
 well-conditioned geometry.  The update is pure batched matmuls + one
-[P, P] RBF kernel -- entirely MXU/VPU work; the particle axis shards.
+[P, P] RBF kernel -- dense matmul and elementwise work; the particle axis shards.
 
   phi(v_i) = (1/P) sum_j [ k(v_j, v_i) grad log p(v_j) + grad_{v_j} k(v_j, v_i) ]
 """

@@ -2,11 +2,10 @@
 
 The reference delegates kernels to KernelFunctions.jl and re-exports it as
 part of its API (/root/reference/src/AugmentedGaussianProcesses.jl:30-33).
-The TPU build internalizes an equivalent library, designed MXU-first:
+This package internalizes an equivalent library:
 
 * every Gram matrix is computed through one batched matmul
-  (``|x|^2 + |z|^2 - 2 x z^T``) followed by a fused elementwise map -- the
-  layout XLA tiles onto the 128x128 systolic array;
+  (``|x|^2 + |z|^2 - 2 x z^T``) followed by a fused elementwise map;
 * kernels are immutable pytree dataclasses; their float leaves *are* the
   trainable hyperparameters (all positive, optimized in log space, matching
   the reference's positive-parameter update rule,
@@ -21,7 +20,7 @@ from typing import Any, Callable, Tuple, Union
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .utils import struct
 
 
 def _scale(X: jnp.ndarray, lengthscale) -> jnp.ndarray:
@@ -38,15 +37,15 @@ def sq_dist(X: jnp.ndarray, Z: jnp.ndarray) -> jnp.ndarray:
     """Pairwise squared Euclidean distance via the matmul identity.
 
     The cross-term dot runs at HIGHEST matmul precision: xx + zz - 2 xz is
-    a catastrophic cancellation, and the TPU's DEFAULT f32 matmul (bf16
-    passes, ~1e-3 relative) perturbs the Gram enough to wreck
-    ill-conditioned cases -- measured on v5e: dense N=512 heteroscedastic
-    rmse 0.32 -> 28.9, and SVGP hyperopt from a long-lengthscale init
-    (near-singular Kmm) fails to converge.  The D-axis contraction is tiny
-    (D = 2..20) next to the M-axis matmuls, so the 3-pass cost is noise.
+    a catastrophic cancellation, and an f32 DEFAULT matmul (TF32 on an
+    NVIDIA GPU, ~1e-3 relative) perturbs the Gram enough to wreck
+    ill-conditioned cases (the dense N=512 heteroscedastic oracle, SVGP
+    hyperopt from a long-lengthscale init with near-singular Kmm).  The
+    D-axis contraction is tiny (D = 2..20) next to the M-axis matmuls, so
+    the full-f32 cost is noise.
 
     With AGP_TPU_BF16_GRAM=1 the cross-term matmul instead runs in
-    bfloat16 with float32 accumulation (2x MXU rate); the norm terms stay
+    bfloat16 with float32 accumulation; the norm terms stay
     f32 so the diagonal is exact.  Off by default: ~1e-2 relative error in
     the Gram is usually harmless for well-conditioned sparse CAVI (a
     fixed-point iteration) but unsafe for dense/ill-conditioned grams."""
@@ -256,9 +255,9 @@ class PiecewisePolynomialKernel(StationaryKernel):
     q in {0,1,2,3}: PSD in dimension D with j = floor(D/2) + q + 1 and
     k = v * (1-r)_+^(j+o) * P_q(r) (GPML Table 4.1; KernelFunctions.jl
     PiecewisePolynomialKernel).  Compact support (k = 0 for r >= 1) makes
-    the Gram sparse in the lengthscale-local sense -- on TPU it is computed
-    dense like every other stationary kernel (the MXU does not benefit from
-    sparsity at these sizes)."""
+    the Gram sparse in the lengthscale-local sense -- it is computed dense
+    like every other stationary kernel (dense matmuls beat sparse formats at
+    these sizes)."""
 
     degree: int = struct.field(pytree_node=False, default=0)
 
@@ -527,7 +526,7 @@ class ProductKernel(Kernel):
 def replicate(kernel: Kernel, n_latent: int) -> Kernel:
     """Stack a kernel's leaves with a leading latent axis [L, ...].
 
-    The TPU analog of the reference's per-latent ``deepcopy(kernel)``
+    The analog of the reference's per-latent ``deepcopy(kernel)``
     (/root/reference/src/models/VGP.jl etc.): one pytree, vmapped Grams.
     """
     return jax.tree_util.tree_map(

@@ -5,7 +5,7 @@ The reference defines a per-likelihood method contract -- `local_updates!`,
 `compute_proba`, `predict_y`, `treat_labels!`, `implemented`
 (/root/reference/src/likelihood/likelihood.jl, e.g. logistic.jl:39-100).
 
-TPU-native re-design: a likelihood is an immutable pytree dataclass whose
+Design: a likelihood is an immutable pytree dataclass whose
 float leaves are its parameters.  All methods are pure: `local_updates`
 returns a *new* (likelihood, local_vars) pair instead of mutating, so the
 whole CAVI step jits as one functional program.  Latent values arrive as
@@ -23,7 +23,7 @@ from typing import Dict, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 Array = jnp.ndarray
 LocalVars = Dict[str, Array]

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..ops.kl import poisson_kl, polya_gamma_kl
 from ..ops.quadrature import expectation, mean_and_var

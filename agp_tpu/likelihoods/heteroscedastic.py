@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..ops.kl import poisson_kl_expected, polya_gamma_kl
 from ..ops.special import safe_expcosh, sqrt_expec_square

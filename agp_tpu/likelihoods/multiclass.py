@@ -4,7 +4,7 @@ Re-derivations of /root/reference/src/likelihood/multiclass.jl,
 logisticsoftmax.jl and softmax.jl.  K classes = K latent GPs; labels are
 one-hot encoded host-side by `treat_labels` (multiclass.jl:80-94) and the
 per-class arrays are laid out [K, B] so the whole local update is one fused
-elementwise block over a [K, B] tile (VPU work, shardable along B).
+elementwise block over a [K, B] tile (shardable along B).
 
 Parity notes: the Gamma-entropy term uses sum(log beta) where the reference
 evaluates `sum(log, first(beta))` -- a single element
@@ -17,7 +17,7 @@ from typing import Any, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from ..utils import struct
 
 from ..ops.kl import gamma_entropy_improper, poisson_kl_expected, polya_gamma_kl
 from ..ops.special import digamma, safe_expcosh, sqrt_expec_square

@@ -16,7 +16,7 @@ from typing import Any, Optional
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ..utils import struct
 
 from ..ops.kl import gig_entropy, inverse_gamma_kl
 from ..ops.special import digamma, gammaln

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from .utils import struct
 
 
 class PriorMean(struct.PyTreeNode):

@@ -2,7 +2,7 @@
 
 The reference's models are mutable structs with trait-based dispatch
 (IsFull/IsSparse/IsMultiOutput, /root/reference/src/models/AbstractGP.jl).
-TPU-native design: each model is an immutable pytree dataclass; the traits
+Design: each model is an immutable pytree dataclass; the traits
 become plain class attributes (`is_sparse`, `is_multioutput`) read at trace
 time, and the per-latent structure is an array axis, not a tuple of structs.
 """

@@ -1,6 +1,6 @@
 """GP: exact Gaussian-process regression (Gaussian likelihood only).
 
-TPU-native equivalent of /root/reference/src/models/GP.jl: posterior kept as
+JAX equivalent of the reference's src/models/GP.jl: posterior kept as
 alpha = (K + sigma^2 I)^-1 (y - mu0) plus the Cholesky factor of
 Sigma = K + sigma^2 I (models/GP.jl:22-35); one `analytic_update` refresh
 per iteration with optional closed-form-gradient noise learning
@@ -13,7 +13,7 @@ from typing import Any, Optional
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ..utils import struct
 
 from ..config import jitter
 from ..inference.config import Analytic

@@ -11,7 +11,7 @@ from typing import Any, Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..config import jitter
 from ..inference.config import GibbsSampling, InferenceConfig

@@ -5,9 +5,9 @@ single_and_multi_output_utils.jl: T tasks share Q latent GPs through
 per-output mixing vectors A, learned by gradient steps + unit-norm
 projection (single_and_multi_output_utils.jl:87-118).
 
-TPU-native layout: the per-task/per-f structure A[t][j][q] is flattened to
+Layout: the per-task/per-f structure A[t][j][q] is flattened to
 one mixing matrix A [R, Q] over "output rows" r = (t, j); the mixing of
-means/variances/gradients is then a pair of [R, Q] x [Q, B] matmuls (MXU)
+means/variances/gradients is then a pair of [R, Q] x [Q, B] matmuls
 instead of nested loops.  Tasks may have heterogeneous likelihoods (a
 Python tuple -- static structure, separate local-vars pytrees).
 """
@@ -19,7 +19,7 @@ from typing import Any, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ..utils import struct
 
 from ..inference.config import AnalyticVI, InferenceConfig
 from ..means import PriorMean, ZeroMean

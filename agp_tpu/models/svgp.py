@@ -1,9 +1,9 @@
 """SVGP: sparse variational Gaussian process over an inducing set Z.
 
-TPU-native equivalent of /root/reference/src/models/SVGP.jl: the N latent
+JAX equivalent of the reference's src/models/SVGP.jl: the N latent
 GPs of the likelihood live on a stacked axis ([L, M, D] inducing points,
 [L, M] / [L, M, M] natural parameters) instead of an NTuple of structs, so
-every per-latent op is a batched MXU kernel under vmap.
+every per-latent op is a batched matmul under vmap.
 """
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from typing import Any, Optional
 
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ..utils import struct
 
 from ..inference.config import AnalyticVI, InferenceConfig
 from ..likelihoods.base import Likelihood

@@ -29,7 +29,7 @@ from typing import Any, Optional
 import jax
 import jax.numpy as jnp
 import optax
-from flax import struct
+from ..utils import struct
 
 from ..inference.config import InferenceConfig
 from ..likelihoods.base import Likelihood

@@ -1,13 +1,12 @@
 """Dense linear-algebra primitives for the augmented-GP compute path.
 
-TPU-first design notes
-----------------------
+Design notes
+------------
 The hot shapes here are small-to-medium (M = 32..512 inducing points) but are
 executed every CAVI iteration, batched over the latent-GP axis ``L`` via
 ``vmap``.  All ops are jit-compatible, static-shaped, and keep data in
-float32 (or float64 on CPU parity runs).  XLA maps the matmuls
-(``kappa = Knm Kmm^-1``, ``kappa^T diag(theta) kappa``) onto the MXU; the
-triangular solves use the XLA `TriangularSolve` HLO.
+float32 (or float64 on CPU parity runs); the triangular solves use the XLA
+`TriangularSolve` HLO.
 
 Functional equivalents of the reference's Cholesky-centric helpers
 (/root/reference/src/functions/utils.jl:104-108,
@@ -27,13 +26,13 @@ def _highest_precision(fn):
 
     Everything in this module is [M, M]-scale setup/conversion work
     (factorizations, triangular solves, inverses, eta <-> moments), NOT the
-    per-datapoint B-axis matmuls -- so the 3-pass f32 cost is negligible.
-    It is also where low precision is catastrophic on TPU: the default f32
-    matmul (bf16 passes) inside XLA's blocked TriangularSolve/inverse gives
-    O(1) errors on ill-conditioned 64x64 kernel matrices (measured v5e:
-    K_inv max-abs error 1.44 vs CPU; SVGP logistic accuracy 0.99 -> 0.73).
-    Dot/solve transpose rules inherit the primal precision, so gradients
-    through these ops are covered too."""
+    per-datapoint B-axis matmuls -- so the full-f32 cost is negligible.
+    It is also where low precision is catastrophic: a TF32 or one-pass
+    bf16 matmul (what an f32 DEFAULT dot may run as on an accelerator)
+    inside XLA's blocked TriangularSolve/inverse gives O(1) errors on
+    ill-conditioned 64x64 kernel matrices, since the error is amplified by
+    cond(K).  Dot/solve transpose rules inherit the primal precision, so
+    gradients through these ops are covered too."""
     import functools
 
     @functools.wraps(fn)
@@ -85,7 +84,7 @@ def safe_cholesky(K: jnp.ndarray, jitt: float | None = None) -> jnp.ndarray:
 def psd_safe_cholesky(A: jnp.ndarray, base: float | None = None) -> jnp.ndarray:
     """Cholesky of a matrix that is PD by construction (e.g. -2 eta2, a sum
     of PSD statistics and a PD prior precision) but can be pushed slightly
-    indefinite by f32/TPU-matmul rounding.  Unlike :func:`safe_cholesky`
+    indefinite by f32 matmul rounding.  Unlike :func:`safe_cholesky`
     (whose first rung already adds the base jitter -- the convention for
     kernel grams), this ladder STARTS AT ZERO: exact whenever the plain
     factorization succeeds, escalating base*10^k only on NaN.
@@ -95,9 +94,9 @@ def psd_safe_cholesky(A: jnp.ndarray, base: float | None = None) -> jnp.ndarray:
     sqrt(a)/sqrt(Ktilde) for the heavy-tailed likelihoods), where the true
     bottom eigenvalues O(1/lambda_max(K)) sit below the f32 rounding of the
     top -- an absolute ladder capped at 10x jitter cannot restore
-    positive-definiteness there (measured v5e: laplace beta=0.1 NaN'd the
-    chain at step 1; the relative ladder recovers with O(norm * eps)
-    distortion of the least-informed directions only)."""
+    positive-definiteness there (laplace with beta=0.1 NaN'd the chain at
+    step 1; the relative ladder recovers with O(norm * eps) distortion of
+    the least-informed directions only)."""
     M = A.shape[-1]
     if base is None:
         mean_diag = jnp.mean(jnp.abs(jnp.diagonal(
@@ -205,7 +204,7 @@ def nat_to_moments_warm(
     schulz_iters: int = 4,
     rho_max: float = 0.35,
 ):
-    """Matmul-only (MXU-friendly) variant of :func:`nat_to_moments` for the
+    """Matmul-only variant of :func:`nat_to_moments` for the
     inner CAVI loop.
 
     Sigma = A^-1 with A = -2 eta2 is computed by Newton-Schulz iteration
@@ -216,15 +215,14 @@ def nat_to_moments_warm(
     When the warm start is too far (rho0 > rho_max -- early iterations,
     post-hyperparameter jumps), fall back to the exact Cholesky path inside
     a lax.cond.  With rho_max = 0.35 and 4 iterations the Schulz branch is
-    exact to ~5e-8 relative (0.35^16), below f32 roundoff of the product --
-    both tighter AND one iteration (2 matmuls) cheaper than the previous
-    (5, 0.6) setting, measured +8% on the flagship CAVI step (v5e); the
-    tighter gate just falls back to Cholesky slightly more often right
-    after hyperparameter jumps.
+    exact to ~5e-8 relative (0.35^16), below f32 roundoff of the product;
+    the tight gate falls back to Cholesky slightly more often right after
+    hyperparameter jumps.
 
-    Rationale: on TPU the small-M Cholesky + two triangular solves are
-    sequential vector-unit work (the dominant cost of an M=64 CAVI step),
-    while 2 matmuls/iteration of [M, M] run on the MXU.
+    Rationale: the small-M Cholesky + two triangular solves are a chain of
+    small sequential kernels, while 2 matmuls/iteration of [M, M] are two
+    dense products.  Which is faster is measured per device class (PERF.md;
+    analytic_vi.FAST_MOMENTS_MAX_DIM).
     """
     M = eta1.shape[-1]
     I = jnp.eye(M, dtype=eta1.dtype)
@@ -269,7 +267,7 @@ def nat_to_moments_warm_batched(
     safe=True routes the Cholesky fallback through the adaptive jitter
     ladder (:func:`safe_cholesky`).  The streaming/online natural
     parameters include the kappa_a^T invDa kappa_a old-posterior
-    correction, which TPU f32 matmul rounding can push slightly indefinite
+    correction, which f32 matmul rounding can push slightly indefinite
     right after an inducing-set update -- the plain factorization then NaNs
     the whole chain, while the ladder recovers with the smallest jitter
     that restores positive-definiteness (exact whenever no rung fires)."""

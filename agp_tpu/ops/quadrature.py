@@ -5,10 +5,10 @@ predictions (reference: /root/reference/src/training/predictions.jl:4) and a
 configurable node count for QuadratureVI
 (reference: /root/reference/src/inference/quadratureVI.jl:36-52).
 
-TPU-native design: node/weight tables are computed once on the host with
+Design: node/weight tables are computed once on the host with
 numpy (Golub-Welsch eigendecomposition) and baked into the jitted program as
 constants; the expectation itself is a [batch, nodes] broadcast + one
-reduction -- pure VPU work that XLA fuses with the integrand.
+reduction -- elementwise work that XLA fuses with the integrand.
 """
 from __future__ import annotations
 

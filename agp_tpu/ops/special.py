@@ -4,7 +4,7 @@ Vectorized JAX re-implementations of the numerical guards and Bessel-type
 functions the reference gets from Julia's SpecialFunctions
 (reference: /root/reference/src/functions/utils.jl:84-92,
  /root/reference/src/functions/KLdivergences.jl:101-113).
-Everything here is elementwise (VPU work) and overflow-safe in float32.
+Everything here is elementwise and overflow-safe in float32.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ def logcosh(c: jnp.ndarray) -> jnp.ndarray:
 def safe_expcosh(mu: jnp.ndarray, c: jnp.ndarray) -> jnp.ndarray:
     """exp(mu)/cosh(c) computed in log space so it never overflows
     (reference: functions/utils.jl:84-86 falls back to a logistic bound on
-    overflow; the log-space form is exact and TPU-friendly)."""
+    overflow; the log-space form is exact and branch-free)."""
     return jnp.exp(mu - logcosh(c))
 
 

@@ -1,19 +1,18 @@
 """Device mesh + sharding layout for data-parallel CAVI.
 
 The reference is single-process with no distribution of any kind
-(SURVEY.md section 2.8).  The TPU-native scaling design:
+(SURVEY.md section 2.8).  The scaling design:
 
 * the N (data) axis is sharded across the mesh: X, y, and every local
   variable (theta, gamma, c, ...) are embarrassingly per-datapoint;
 * the ONLY cross-device reductions of a CAVI step are the M-dimensional
   statistics kappa^T (rho grad_e_mu) ([M]) and kappa^T diag(theta) kappa
   ([M, M]) -- under jit+GSPMD these einsum contractions over the sharded
-  batch axis lower to `psum`s over ICI;
+  batch axis lower to `psum`s;
 * eta1/eta2/mu/Sigma/kernel params are tiny ([M], [M,M]) and replicated;
 * iterations are chunked into on-device `lax.scan`s (one dispatch per
   chunk, not per step) -- the same fusion the single-chip trainer uses
-  (training/train.py::_vi_steps); per-step host dispatch costs 5-16x at
-  small M (RESULTS.md).
+  (training/train.py::_vi_steps).
 
 Padding contract: when N is not divisible by the mesh size, `shard_batch`
 pads the trailing shard and the drivers thread a 0/1 row mask through the
@@ -24,8 +23,7 @@ reference counts every point once trivially (single process,
 inference/analyticVI.jl:160-180).
 
 Multi-host: the same program runs under `jax.distributed.initialize` with a
-host x chip mesh; the statistics psum rides ICI within a slice and DCN
-across hosts.
+global device mesh.
 """
 from __future__ import annotations
 
@@ -90,13 +88,9 @@ def _n_pad(mesh: Mesh, N: int) -> int:
 def _dp_body(model, state, x, y, w=None):
     """One data-parallel CAVI step body (GSPMD: the statistic einsums over
     the sharded batch axis lower to psums)."""
-    from ..inference.analytic_vi import pallas_override, variational_update
+    from ..inference.analytic_vi import variational_update
 
-    # GSPMD cannot partition a pallas_call (opaque custom call): trace with
-    # the fused tier off; XLA's einsum contractions psum cleanly.  The
-    # fused multi-chip path is sharded_fused_svi_step (shard_map).
-    with pallas_override("off"):
-        model, state = variational_update(model, state, x, y, w=w)
+    model, state = variational_update(model, state, x, y, w=w)
     return model, state.replace(step=state.step + 1)
 
 
@@ -164,11 +158,9 @@ def sharded_train(
 
 # ------------------------------------------------------- multi-output CAVI
 def _mo_dp_body(model, state, x, ys, w=None):
-    from ..inference.analytic_vi import pallas_override
     from ..models.multioutput import mo_variational_update
 
-    with pallas_override("off"):
-        model, state = mo_variational_update(model, state, x, ys, w=w)
+    model, state = mo_variational_update(model, state, x, ys, w=w)
     return model, state.replace(step=state.step + 1)
 
 
@@ -234,7 +226,7 @@ def _local_parts(n_dev: int, batch_per_device: int, n_pad: int, axis_name: str,
 
     Split so the scan driver can HOIST the RNG out of the step scan
     (train.py::_precomputed_draws rationale: the per-step fold_in+randint
-    serial threefry chain costs ~7.5 us/step on v5e): `gen(xs, ks)`
+    is a serial chain of small threefry ops): `gen(xs, ks)`
     produces the per-device index rows for a whole chunk of steps in one
     vectorized pass, `take(xs, ys, idx)` materializes one step's batch.
 
@@ -311,8 +303,7 @@ def _local_parts(n_dev: int, batch_per_device: int, n_pad: int, axis_name: str,
             if xs.ndim == 3:
                 # PRE-TILED [T, tile, D]/[T, tile] shard views
                 # (build_svi_trainer hoists the relayout out of the whole
-                # run; the in-scan reshape costs up to ~200 us/step on
-                # v5e -- see training/train.py::_tile_views)
+                # run -- see training/train.py::_tile_views)
                 xt = jnp.take(xs, idx, axis=0).reshape(
                     batch_per_device, xs.shape[-1]
                 )
@@ -396,7 +387,7 @@ def sharded_svi_step(
     Each device draws its own local minibatch from its X shard, then the
     jitted variational update runs on the sharded minibatch with GSPMD
     psum-ing the [M]/[M,M] statistics."""
-    from ..inference.analytic_vi import pallas_override, variational_update
+    from ..inference.analytic_vi import variational_update
 
     draw_sharded = _make_draw(mesh, batch_per_device, n_pad, axis_name, sampling)
     take_sharded = _make_take(mesh, batch_per_device, n_pad, axis_name, sampling)
@@ -407,18 +398,14 @@ def sharded_svi_step(
         # step instead of a split + fold
         sub = jax.random.fold_in(state.key, state.step)
         x_b, y_b = draw_sharded(X, y, sub)
-        # fused tier off under GSPMD (see data_parallel_step); use
-        # sharded_fused_svi_step for the Pallas multi-chip path.
-        with pallas_override("off"):
-            model, state = variational_update(model, state, x_b, y_b)
+        model, state = variational_update(model, state, x_b, y_b)
         return model, state.replace(step=state.step + 1)
 
     def body_idx(model, state, X, y, idx):
         """Step on a PRECOMPUTED per-device index row (the scan driver
         hoists the draw RNG out of the scan; same indices as step_body)."""
         x_b, y_b = take_sharded(X, y, idx)
-        with pallas_override("off"):
-            model, state = variational_update(model, state, x_b, y_b)
+        model, state = variational_update(model, state, x_b, y_b)
         return model, state.replace(step=state.step + 1)
 
     step = jax.jit(step_body)
@@ -428,136 +415,14 @@ def sharded_svi_step(
     return step
 
 
-def sharded_fused_svi_step(
-    mesh: Mesh, model_template, batch_per_device: int, n_pad: int = 0,
-    axis_name: str = "data", sampling: str = "gather",
-):
-    """Multi-chip fused-Pallas SVI step (the roadmap's "psum'd fused
-    statistics" design).
-
-    Under `shard_map`, every device draws its own minibatch from its local
-    X shard and runs the ENTIRE CAVI statistics pass -- gram -> kappa ->
-    K-tilde -> latent moments -> E-step -> both statistic contractions --
-    as ONE Pallas kernel on its shard (ops/pallas_kernels.py::
-    fused_cavi_stats; the shard is read from HBM exactly once).  The only
-    collectives are the psums of the [M] and [M, M] statistics over the
-    data axis, riding ICI.  The tiny replicated natural-gradient update
-    (eta -> moments, O(M^3) on [M, M]) then runs once under GSPMD.
-
-    `model_template` fixes the trace-time dispatch (kernel kind, likelihood
-    branch); the jitted step still takes the live model pytree.  Raises if
-    the combination has no fused kernel -- fall back to sharded_svi_step.
-    """
-    from ..config import jitter as _jitter
-    from ..inference.analytic_vi import (
-        _fused_scaled_inputs,
-        _nat_update_from_stats,
-        _pallas_fused_spec,
-        kmat_l_inv,
-        pallas_override,
-    )
-    from ..ops import pallas_kernels as pk
-
-    with pallas_override("on"):
-        spec = _pallas_fused_spec(model_template)
-    if spec is None:
-        raise ValueError(
-            "no fused Pallas kernel for this (kernel, likelihood) pair -- "
-            "use sharded_svi_step"
-        )
-    kind, lik_name, _, _, c_key = spec
-    P_ = P(axis_name)
-    gen_local, take_local = _local_parts(
-        mesh.devices.size, batch_per_device, n_pad, axis_name, sampling
-    )
-
-    def _local_stats(model, state, xs, ys, key_or_idx, *, pre):
-        if pre:  # precomputed per-device index row (RNG hoisted by the
-            # scan driver); else a per-step key (single-step API)
-            x_b, y_b = take_local(xs, ys, key_or_idx)
-        else:
-            x_b, y_b = take_local(xs, ys, gen_local(xs, key_or_idx[None])[0])
-        with pallas_override("on"):
-            _, _, p0, p1, _ = _pallas_fused_spec(model)  # traced lik params
-        xs_b, zs, ls = _fused_scaled_inputs(model, x_b)
-        s1, S2, c, theta, _, _ = pk.fused_cavi_stats(
-            xs_b,
-            y_b,
-            zs,
-            kmat_l_inv(state.kmat)[0].T,
-            state.mu[0],
-            state.Sigma[0],
-            ls,
-            jnp.ravel(model.kernel.variance)[0],
-            _jitter(x_b.dtype),
-            state.rho,
-            lik_p0=p0,
-            lik_p1=p1,
-            kind=kind,
-            lik=lik_name,
-        )
-        # rho is applied inside the kernel and the kappa-basis statistics
-        # are linear in the data axis: the psum of per-shard stats IS the
-        # global-batch stat (L_inv, mu, Sigma are replicated, so every
-        # shard contracts against the same kappa construction).
-        s1 = jax.lax.psum(s1, axis_name).astype(x_b.dtype)
-        S2 = jax.lax.psum(S2, axis_name).astype(x_b.dtype)
-        return s1, S2, c, theta
-
-    # pallas_call's out_shapes carry no varying-mesh-axes annotation; the
-    # specs state the facts (stats replicated post-psum, local vars
-    # sharded), so skip the vma check.
-    stats_sharded = jax.shard_map(
-        partial(_local_stats, pre=False),
-        mesh=mesh,
-        in_specs=(P(), P(), P_, P_, P()),
-        out_specs=(P(), P(), P_, P_),
-        check_vma=False,
-    )
-    stats_sharded_idx = jax.shard_map(
-        partial(_local_stats, pre=True),
-        mesh=mesh,
-        in_specs=(P(), P(), P_, P_, P(axis_name)),
-        out_specs=(P(), P(), P_, P_),
-        check_vma=False,
-    )
-
-    def _finish(model, state, X, s1, S2, c, theta):
-        local = dict(state.local_vars)
-        local["theta"] = theta.astype(X.dtype)
-        if c_key is not None and c_key in local:
-            local[c_key] = c.astype(X.dtype)
-        state = state.replace(local_vars=local)
-        state = _nat_update_from_stats(
-            model, state, s1[None].astype(X.dtype), S2[None].astype(X.dtype), X
-        )
-        return model, state.replace(step=state.step + 1)
-
-    def step_body(model, state, X, y):
-        sub = jax.random.fold_in(state.key, state.step)
-        s1, S2, c, theta = stats_sharded(model, state, X, y, sub)
-        return _finish(model, state, X, s1, S2, c, theta)
-
-    def body_idx(model, state, X, y, idx):
-        s1, S2, c, theta = stats_sharded_idx(model, state, X, y, idx)
-        return _finish(model, state, X, s1, S2, c, theta)
-
-    step = jax.jit(step_body)
-    step.body = step_body
-    step.body_idx = body_idx
-    step.gen_idx = _make_idx_gen(mesh, batch_per_device, n_pad, axis_name, sampling)
-    return step
-
-
 def _make_svi_steps(step_or_body):
     """Scan-fuse an SVI step body into a chunked multi-step dispatch.
 
     When given a step object carrying (body_idx, gen_idx) -- what
-    sharded_svi_step / sharded_fused_svi_step return -- the chunk's draw
-    indices are precomputed in ONE vectorized RNG pass before the scan
-    (bit-identical to the per-step fold; train.py::_precomputed_draws
-    rationale: the in-body serial threefry chain costs ~7.5 us/step on
-    v5e).  A bare body function gets the legacy per-step-RNG scan."""
+    sharded_svi_step returns -- the chunk's draw indices are precomputed in
+    ONE vectorized RNG pass before the scan (bit-identical to the per-step
+    fold; train.py::_precomputed_draws).  A bare body function gets the
+    legacy per-step-RNG scan."""
     body_idx = getattr(step_or_body, "body_idx", None)
     gen_idx = getattr(step_or_body, "gen_idx", None)
     step_body = getattr(step_or_body, "body", step_or_body)
@@ -593,7 +458,7 @@ def _make_svi_steps(step_or_body):
 
 def build_svi_trainer(
     model, X, y, mesh: Mesh | None = None, batch_per_device: int | None = None,
-    state=None, key=None, fused: bool | None = None,
+    state=None, key=None,
 ):
     """Build the sharded-SVI training pieces: returns
     (steps, model, state, Xs, ys) where `steps(model, state, Xs, ys, n)` is
@@ -633,10 +498,6 @@ def build_svi_trainer(
         state = state.replace(
             rho=jnp.asarray(X.shape[0] / (batch_per_device * n_dev), X.dtype)
         )
-    if fused is None:
-        from ..inference.analytic_vi import _pallas_fused_spec
-
-        fused = _pallas_fused_spec(model) is not None  # honors the auto gate
     sampling = getattr(model.inference, "minibatch_sampling", "gather")
     if sampling.startswith("block"):
         # hoist the block-mode tile relayout out of the whole run (one
@@ -661,11 +522,7 @@ def build_svi_trainer(
                 )
             )
             Xs, ys = retile(Xs, ys)
-    if fused:
-        step = sharded_fused_svi_step(mesh, model, batch_per_device, n_pad,
-                                      sampling=sampling)
-    else:
-        step = sharded_svi_step(mesh, batch_per_device, n_pad, sampling=sampling)
+    step = sharded_svi_step(mesh, batch_per_device, n_pad, sampling=sampling)
     steps = _make_svi_steps(step)
     model, state = replicate(mesh, (model, state))
     return steps, model, state, Xs, ys
@@ -674,18 +531,14 @@ def build_svi_trainer(
 def sharded_svi_train(
     model, X, y, iterations: int, mesh: Mesh | None = None,
     batch_per_device: int | None = None, state=None, key=None,
-    fused: bool | None = None, chunk: int = 500,
+    chunk: int = 500,
 ):
     """Minibatched data-parallel training driver (the 1M-point BASELINE
-    config on a pod slice).  Global batch = batch_per_device * n_devices;
-    `chunk` SVI iterations run per device dispatch as one `lax.scan`.
-
-    fused: True -> shard_map fused-Pallas statistics step
-    (sharded_fused_svi_step); False -> GSPMD einsum step; None (default) ->
-    fused when the single-chip auto gate would fire (TPU backend, M >= 512,
-    fused likelihood/kernel pair)."""
+    config on several devices).  Global batch = batch_per_device *
+    n_devices; `chunk` SVI iterations run per device dispatch as one
+    `lax.scan` of the GSPMD step."""
     steps, model, state, Xs, ys = build_svi_trainer(
-        model, X, y, mesh, batch_per_device, state, key, fused
+        model, X, y, mesh, batch_per_device, state, key
     )
     done = 0
     while done < iterations:
@@ -697,8 +550,8 @@ def sharded_svi_train(
 
 def initialize_distributed(coordinator_address=None, num_processes=None, process_id=None):
     """Multi-host bring-up: call once per host before building meshes
-    (the TPU-native replacement for the reference's nonexistent distributed
-    backend; jax.distributed handles the rendezvous over DCN)."""
+    (the reference has no distributed backend; jax.distributed handles the
+    rendezvous)."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs = dict(

@@ -16,7 +16,7 @@ from __future__ import annotations
 from typing import Any
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 
 class TrainState(struct.PyTreeNode):
@@ -31,8 +31,7 @@ class TrainState(struct.PyTreeNode):
     opt_state: Any = None
     # optimizer states for hyperparameters {kernel, mean, Z}
     hyper_state: Any = None
-    # cached kernel matrices {"L_K": [L,M,M], "K_inv": [L,M,M],
-    # "L_inv": [L,M,M] (sparse/full; online masked_kmat omits L_inv)}
+    # cached kernel matrices {"L_K": [L,M,M], "K_inv": [L,M,M]}
     kmat: Any = None
     # minibatch scaling rho = N / batchsize
     rho: Any = None

@@ -1,7 +1,7 @@
 """Tracing / profiling helpers.
 
 The reference has no tracing beyond BenchmarkTools timers (SURVEY.md
-section 5).  TPU-native equivalent: `jax.profiler` traces viewable in
+section 5).  JAX equivalent: `jax.profiler` traces viewable in
 TensorBoard/Perfetto, plus a tiny phase timer used by the benchmark suite.
 """
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 The reference ships `docs/src/template_likelihood.jl` -- a skeleton of the
 method contract a hand-written likelihood must implement.  This is the
-TPU-native equivalent, done both ways and VERIFIED:
+equivalent here, done both ways and VERIFIED:
 
 1. Subclass route: implement the `SingleLatentLikelihood` contract by hand.
    The worked example re-derives the Polya-Gamma logistic likelihood from

@@ -1,7 +1,7 @@
 // Native host-side runtime components for agp_tpu.
 //
 // The reference is pure Julia; its "native tier" is BLAS (SURVEY.md §2).
-// Our device-side native tier is Pallas (agp_tpu/ops/pallas_kernels.py);
+// The device-side native tier is agp_tpu/ops/triton_stats.py;
 // this file is the HOST-side native tier: setup-time algorithms with
 // data-dependent control flow that neither XLA nor numpy handle well at
 // large N -- inducing-point selection over millions of candidate rows.

@@ -285,7 +285,7 @@ def test_gauss_hermite_expectation():
 
 
 def test_float32_end_to_end():
-    """f32 inputs must train f32 throughout (the TPU production dtype),
+    """f32 inputs must train f32 throughout (the accelerator dtype),
     even with x64 globally enabled."""
     X = jax.random.uniform(jax.random.PRNGKey(0), (60, 2), dtype=jnp.float32) * 4
     f = jnp.sin(X[:, 0])

@@ -154,60 +154,6 @@ def test_sharded_svi_minibatch_step():
     assert acc > 0.8
 
 
-def test_sharded_fused_svi_step_matches_gspmd():
-    """The shard_map fused-Pallas statistics step (per-device
-    fused_cavi_stats + psum of the [M]/[M,M] stats) must match the GSPMD
-    einsum step: same key -> same per-device minibatch draws -> same
-    natural-gradient update (fused kernel computes in f32)."""
-    import dataclasses
-
-    from jax.experimental.pallas import tpu as pltpu
-
-    from agp_tpu.parallel.mesh import (
-        make_mesh,
-        shard_batch,
-        sharded_fused_svi_step,
-        sharded_svi_step,
-    )
-    from agp_tpu.training.train import init_state
-
-    X = np.random.RandomState(0).randn(1024, 4)
-    y = np.sign(X @ np.ones(4))
-    m = agp.SVGP.create(
-        agp.SqExponentialKernel(lengthscale=jnp.asarray(1.2)),
-        agp.LogisticLikelihood.create(),
-        agp.AnalyticSVI(256),
-        jnp.asarray(X[:32]),
-        optimiser=None,
-    )
-    y2, lik = m.likelihood.treat_labels(y)
-    m = m.replace(likelihood=lik)
-    mesh = make_mesh(8)
-    Xj = jnp.asarray(X)
-    Xs, ys = shard_batch(mesh, Xj, jnp.asarray(y2, Xj.dtype))
-    m = m.replace(inference=dataclasses.replace(m.inference, batchsize=256))
-    state = init_state(m, Xs, ys)
-    state = state.replace(rho=jnp.asarray(X.shape[0] / 256.0, Xj.dtype))
-
-    step_x = sharded_svi_step(mesh, 32)
-    step_f = sharded_fused_svi_step(mesh, m, 32)
-
-    mx, sx = step_x(m, state, Xs, ys)
-    mx, sx = step_x(mx, sx, Xs, ys)
-    with pltpu.force_tpu_interpret_mode():
-        mf, sf = jax.block_until_ready(step_f(m, state, Xs, ys))
-        mf, sf = jax.block_until_ready(step_f(mf, sf, Xs, ys))
-
-    np.testing.assert_allclose(np.asarray(sf.mu), np.asarray(sx.mu), rtol=1e-3, atol=1e-4)
-    np.testing.assert_allclose(
-        np.asarray(sf.Sigma), np.asarray(sx.Sigma), rtol=1e-3, atol=1e-4
-    )
-    np.testing.assert_allclose(
-        np.asarray(sf.local_vars["theta"]), np.asarray(sx.local_vars["theta"]),
-        rtol=1e-3, atol=1e-5,
-    )
-
-
 def test_mo_data_parallel_matches_single_device():
     """Multi-output data-parallel step == single-device mo_train to float
     associativity (statistics + A-gradient contractions psum under GSPMD)."""

@@ -5,7 +5,7 @@ lengthscales and variances, huge |f| in the E-steps, f32 end to end.
 
 Guards the adaptive-jitter Cholesky ladder (ops/linalg.py::safe_cholesky),
 the Ktilde clamp, safe_expcosh/logcosh overflow guards, and the PG/GIG
-samplers' masked-rejection bounds -- the TPU-native equivalents of the
+samplers' masked-rejection bounds -- the JAX equivalents of the
 reference's numerical guards (functions/utils.jl:8-13, latentgp.jl:213,
 utils.jl:84-86).
 """
@@ -174,7 +174,7 @@ def test_online_capacity_saturation():
 def test_psd_safe_cholesky_zero_first_ladder():
     """The online-path eta->moments ladder: exact at rung 0 for a clean PD
     matrix; recovers (instead of NaN) on a slightly-indefinite one, which
-    TPU f32 matmul rounding can produce in the streaming kappa_a^T invDa
+    f32 matmul rounding can produce in the streaming kappa_a^T invDa
     kappa_a correction."""
     from agp_tpu.ops import linalg
 

@@ -184,9 +184,10 @@ def test_svgp_stochastic_step_golden():
     state = agp.init_state(model, X, y, key=key)
     model2, state2 = _vi_step(model, state, X, y)
 
-    # reproduce the device-side batch draw (fold_in(key, step=0))
+    # reproduce the device-side batch draw (fold_in(key, step=0); int32
+    # indices in every precision mode)
     sub = jax.random.fold_in(key, 0)
-    idx = jax.random.randint(sub, (b,), 0, X.shape[0])
+    idx = jax.random.randint(sub, (b,), 0, X.shape[0], jnp.int32)
     xb, yb = X[idx], y[idx]
     jitt = jitter(X.dtype)
     Kmm = kern.gram(Z, Z) + jitt * jnp.eye(6)
