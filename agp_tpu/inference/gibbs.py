@@ -36,7 +36,7 @@ def _use_cg_solver(model) -> bool:
         return True
     if solver == "chol":
         return False
-    return CG_MIN_N is not None and model.train_x.shape[0] >= CG_MIN_N
+    return model.train_x.shape[0] >= CG_MIN_N
 
 
 def gibbs_step(model, kmat, mu0, key, f, local_vars):

@@ -11,8 +11,8 @@ programs run in parallel and kappa never goes to device memory.
 
 The wrapper pads rows to whole tiles (padded rows carry zero weight) and
 input columns to a power of two (zero columns leave distances unchanged).
-The backward pass differentiates `stats_xla`, the same computation in
-jax.numpy, through `jax.custom_vjp`.
+The caller, inference/analytic_vi.py, gives the kernel the gradient of its
+XLA statistics pass through `jax.custom_vjp`.
 """
 from __future__ import annotations
 
@@ -93,27 +93,10 @@ def _pad(x, y, z):
     return xp, yp, wp, zp, tiles, progs
 
 
-def stats_xla(x, y, z, kinv, mu, sigma, variance, jitt, rho,
-              kappa_algorithm=None):
-    """The kernel's computation in jax.numpy: (s1, S2, c, theta)."""
-    xz = jnp.dot(x, z.T, precision=jax.lax.Precision.HIGHEST)
-    d2 = jnp.maximum(
-        jnp.sum(x * x, 1)[:, None] + jnp.sum(z * z, 1)[None, :] - 2.0 * xz, 0.0
-    )
-    knm = variance * jnp.exp(-0.5 * d2)
-    kappa = jnp.dot(knm, kinv, precision=kappa_algorithm)
-    ktilde = jnp.maximum(variance + jitt - jnp.sum(kappa * knm, 1), 1e-12)
-    mf = kappa @ mu
-    vf = ktilde + jnp.sum((kappa @ sigma) * kappa, 1)
-    c = jnp.sqrt(mf * mf + vf)
-    theta = jnp.tanh(c / 2.0) / (2.0 * c)
-    s1 = kappa.T @ (rho * y / 2.0)
-    s2 = (kappa * (rho * theta / 2.0)[:, None]).T @ kappa
-    return s1, s2, c, theta
-
-
-def _stats_pallas(x, y, z, kinv, mu, sigma, variance, jitt, rho,
-                  kappa_algorithm, interpret):
+def fused_logistic_stats(x, y, z, kinv, mu, sigma, variance, jitt, rho,
+                         kappa_algorithm=None, interpret=False):
+    """(s1 [M], S2 [M, M], c [B], theta [B]) of one logistic CAVI step on
+    float32 inputs already divided by the RBF lengthscale."""
     b = x.shape[0]
     m = z.shape[0]
     xp, yp, wp, zp, tiles, progs = _pad(x, y, z)
@@ -154,29 +137,3 @@ def _stats_pallas(x, y, z, kinv, mu, sigma, variance, jitt, rho,
         name="cavi_logistic_stats",
     )(xp, yp, wp, zp, jnp.sum(zp * zp, 1), kinv, mu, sigma, params)
     return jnp.sum(s1p, 0), jnp.sum(s2p, 0), c[:b], theta[:b]
-
-
-@functools.partial(jax.custom_vjp, nondiff_argnums=(9, 10))
-def fused_logistic_stats(x, y, z, kinv, mu, sigma, variance, jitt, rho,
-                         kappa_algorithm=None, interpret=False):
-    """(s1 [M], S2 [M, M], c [B], theta [B]) of one logistic CAVI step on
-    float32 inputs already divided by the RBF lengthscale."""
-    return _stats_pallas(x, y, z, kinv, mu, sigma, variance, jitt, rho,
-                         kappa_algorithm, interpret)
-
-
-def _fwd(x, y, z, kinv, mu, sigma, variance, jitt, rho, kappa_algorithm,
-         interpret):
-    out = _stats_pallas(x, y, z, kinv, mu, sigma, variance, jitt, rho,
-                        kappa_algorithm, interpret)
-    return out, (x, y, z, kinv, mu, sigma, variance, jitt, rho)
-
-
-def _bwd(kappa_algorithm, interpret, res, cot):
-    _, vjp = jax.vjp(
-        functools.partial(stats_xla, kappa_algorithm=kappa_algorithm), *res
-    )
-    return vjp(cot)
-
-
-fused_logistic_stats.defvjp(_fwd, _bwd)

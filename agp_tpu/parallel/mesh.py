@@ -87,10 +87,11 @@ def _n_pad(mesh: Mesh, N: int) -> int:
 # --------------------------------------------------------- full-batch CAVI
 def _dp_body(model, state, x, y, w=None):
     """One data-parallel CAVI step body (GSPMD: the statistic einsums over
-    the sharded batch axis lower to psums)."""
+    the sharded batch axis lower to psums; the statistics stay in XLA,
+    which the partitioner can split)."""
     from ..inference.analytic_vi import variational_update
 
-    model, state = variational_update(model, state, x, y, w=w)
+    model, state = variational_update(model, state, x, y, w=w, fused=False)
     return model, state.replace(step=state.step + 1)
 
 
@@ -386,7 +387,9 @@ def sharded_svi_step(
 
     Each device draws its own local minibatch from its X shard, then the
     jitted variational update runs on the sharded minibatch with GSPMD
-    psum-ing the [M]/[M,M] statistics."""
+    psum-ing the [M]/[M,M] statistics.  The statistics pass stays in XLA
+    (`fused=False`): GSPMD cannot partition the Triton kernel's custom call
+    and would gather the whole minibatch onto every device."""
     from ..inference.analytic_vi import variational_update
 
     draw_sharded = _make_draw(mesh, batch_per_device, n_pad, axis_name, sampling)
@@ -398,14 +401,14 @@ def sharded_svi_step(
         # step instead of a split + fold
         sub = jax.random.fold_in(state.key, state.step)
         x_b, y_b = draw_sharded(X, y, sub)
-        model, state = variational_update(model, state, x_b, y_b)
+        model, state = variational_update(model, state, x_b, y_b, fused=False)
         return model, state.replace(step=state.step + 1)
 
     def body_idx(model, state, X, y, idx):
         """Step on a PRECOMPUTED per-device index row (the scan driver
         hoists the draw RNG out of the scan; same indices as step_body)."""
         x_b, y_b = take_sharded(X, y, idx)
-        model, state = variational_update(model, state, x_b, y_b)
+        model, state = variational_update(model, state, x_b, y_b, fused=False)
         return model, state.replace(step=state.step + 1)
 
     step = jax.jit(step_body)

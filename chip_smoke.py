@@ -49,6 +49,7 @@ if __name__ == "__main__":
     use_compile_cache()
 
 import json  # noqa: E402
+import re  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import tempfile  # noqa: E402
@@ -439,35 +440,36 @@ def phase_flagship(sz, cpu_ref_wait):
 
 
 def check_fused_kernel(ph, X, y, c):
-    """The Triton statistics kernel at the flagship width against its
-    jax.numpy twin (on a GPU; elsewhere the XLA path runs and this says so)."""
+    """The Triton statistics kernel, compiled for this GPU at the flagship
+    width, against the XLA statistics pass it replaces (on another
+    platform the XLA pass runs and this says so)."""
     import jax
     import jax.numpy as jnp
 
-    from agp_tpu.inference.analytic_vi import (
-        FUSED_MAX_M, _kappa_precision)
-    from agp_tpu.ops.triton_stats import fused_logistic_stats, stats_xla
-    from agp_tpu.reference import max_rel_err, rbf
+    import agp_tpu as agp
+    from agp_tpu.inference import analytic_vi
+    from agp_tpu.reference import max_rel_err
+    from agp_tpu.training.train import init_state
 
-    applies = jax.default_backend() == "gpu" and c["M"] <= FUSED_MAX_M
-    ph.say(f"Triton statistics kernel on this path: {applies}")
-    if not applies:
-        return
     M, B = c["M"], c["B"]
-    Z = X[:M].astype(np.float64) / 2.0
-    kinv = np.linalg.inv(rbf(Z, Z, 1.0, 1.0) + 1e-3 * np.eye(M))
+    m = svgp(agp, jnp, agp.LogisticLikelihood.create(), X[:M], B, jnp.float32)
+    on_gpu = jax.default_backend() == "gpu"
+    ph.say("Triton statistics kernel on this path: "
+           f"{on_gpu and analytic_vi._fused_logistic_applies(m, jnp.asarray(X[:B]))}")
+    if not on_gpu:
+        return
     rng = np.random.default_rng(SEED + 8)
     A = rng.standard_normal((M, M)) / np.sqrt(M)
-    args = (jnp.asarray(X[:B] / 2.0), jnp.asarray(y[:B]), jnp.asarray(Z, F32),
-            jnp.asarray(kinv, F32), jnp.asarray(rng.standard_normal(M), F32),
-            jnp.asarray(A @ A.T + np.eye(M), F32), jnp.float32(1.0), 1e-3,
-            jnp.float32(c["N"] / B))
-    alg = _kappa_precision(jnp.float32)
-    out = jax.jit(lambda *a: fused_logistic_stats(*a, alg))(*args)
-    ref = jax.jit(lambda *a: stats_xla(*a, alg))(*args)
+    xb, yb = jnp.asarray(X[:B]), jnp.asarray(y[:B])
+    st = init_state(m, xb, yb).replace(
+        mu=jnp.asarray(rng.standard_normal((1, M)), F32),
+        Sigma=jnp.asarray((A @ A.T + np.eye(M))[None], F32),
+        rho=jnp.float32(c["N"] / B))
+    out = jax.jit(analytic_vi._fused_logistic_stats)(m, st, xb, yb)
+    ref = jax.jit(analytic_vi._logistic_stats)(m, st, xb, yb)
     errs = [max_rel_err(o, r) for o, r in zip(out, ref)]
-    ph.check(f"Triton kernel vs jax.numpy twin at B={B}, M={M}: max rel err "
-             "(s1, S2, c, theta)", ", ".join(f"{e:.2e}" for e in errs),
+    ph.check(f"Triton kernel vs the XLA statistics pass at B={B}, M={M}: max "
+             "rel err (s1, S2, c, theta)", ", ".join(f"{e:.2e}" for e in errs),
              max(errs) <= 1e-3, "each <= 1e-3: TF32 statistics dots in both, "
              "summed in another order")
 
@@ -842,6 +844,157 @@ def phase_times():
 
 
 # ------------------------------------------------------------ four devices
+_COLLECTIVE = re.compile(
+    r"=\s*(.+?)\s+(all-gather|all-reduce|all-to-all|collective-permute|"
+    r"reduce-scatter)(?:-start)?\(")
+
+
+def collectives(hlo_text):
+    """(op, elements) of every cross-device collective in compiled HLO
+    text; an asynchronous pair counts once, at its start, with every array
+    of its result type."""
+    out = []
+    for line in hlo_text.splitlines():
+        m = _COLLECTIVE.search(line)
+        if m:
+            dims = re.findall(r"[a-z]\w*\[([\d,]*)\]", m.group(1))
+            out.append((m.group(2), sum(
+                int(np.prod([int(d) for d in ds.split(",") if d])) for ds in dims)))
+    return out
+
+
+def stray_collectives(hlo_text, m):
+    """The collectives of a sharded CAVI step beyond the all-reduce of the
+    [M] and [M, M] statistics: any gather or exchange, and any collective
+    larger than both statistics twice over."""
+    limit = 2 * m * (m + 1)
+    return [c for c in collectives(hlo_text)
+            if c[0] in ("all-gather", "all-to-all") or c[1] > limit]
+
+
+def _flops(compiled):
+    cost = compiled.cost_analysis()
+    cost = cost[0] if isinstance(cost, (list, tuple)) else cost
+    return (cost or {}).get("flops")
+
+
+def check_sharded_work(ph, model, X, y, c, mesh, m1, s1):
+    """That the sharded SVI step splits its work: its compiled program's
+    collectives, its per-device flops against the same step on one device,
+    and its rate beside the one-device trainer's (information)."""
+    import jax
+
+    from agp_tpu.models.base import as_2d, match_dtype
+    from agp_tpu.parallel.mesh import build_svi_trainer, make_mesh
+    from agp_tpu.training.train import _vi_steps
+
+    nd, n = mesh.devices.size, 500
+    steps, ms, ss, Xs, ys = build_svi_trainer(model, X, y, mesh)
+    lowered = steps.lower(ms, ss, Xs, ys, n)
+    compiled = lowered.compile()
+    hlo = compiled.as_text()
+    ph.say(f"collectives of the compiled {nd}-device step: {collectives(hlo)}")
+    stray = stray_collectives(hlo, c["M"])
+    ph.check("collectives beyond the [M] + [M, M] statistics all-reduce",
+             stray, not stray, "none: the minibatch is never gathered")
+    in_step = "cavi_logistic_stats" in lowered.as_text()
+    ph.check("Triton statistics kernel inside the GSPMD step", in_step,
+             not in_step, "False: GSPMD cannot partition its custom call")
+    one = build_svi_trainer(model, X, y, make_mesh(1))
+    f1, fn = _flops(one[0].lower(*one[1:], n).compile()), _flops(compiled)
+    ratio = fn / f1 if fn and f1 else float("nan")
+    ph.check(f"per-device flops of the {nd}-device step / the same step on "
+             "one device", f"{ratio:.4f}", ratio <= 1.5 / nd,
+             f"<= {1.5 / nd:g}: each device runs its share of the batch")
+
+    def rate(fn_steps, mdl, st, xa, ya):
+        for _ in range(2):  # compile, then the weak-type recompile
+            mdl, st = fn_steps(mdl, st, xa, ya, n)
+        jax.block_until_ready(st.mu)
+        t0 = time.perf_counter()
+        mdl, st = fn_steps(mdl, st, xa, ya, n)
+        jax.block_until_ready(st.mu)
+        return n / (time.perf_counter() - t0)
+
+    Xd = jax.device_put(as_2d(X), jax.devices()[0])
+    yd = match_dtype(model.likelihood.treat_labels(y)[0], Xd)
+    fused_one = "cavi_logistic_stats" in _vi_steps.lower(m1, s1, Xd, yd, n).as_text()
+    r_n, r_1 = rate(steps, ms, ss, Xs, ys), rate(_vi_steps, m1, s1, Xd, yd)
+    ph.say(f"steady-state steps/s at global B={c['B']}: {nd} devices "
+           f"{r_n:.1f}, one device {r_1:.1f} (Triton kernel on one device: "
+           f"{fused_one}; information)")
+
+
+# Largest |difference| of two runs' posterior means, in Monte-Carlo
+# standard errors, over all points: about 1e-6 per point beyond 5 for a
+# normal z, so a few hundred points pass when the runs sample one posterior.
+MC_Z_LIMIT = 5.0
+
+
+def posterior_mean_z(a, b, batch):
+    """Two Gibbs runs' samples `a`, `b` [chains, samples, points]: the
+    largest |mean(a) - mean(b)| over points in units of the Monte-Carlo
+    standard error, from batch means of `batch` consecutive samples of
+    each chain, and the largest |mean(a) - mean(b)|."""
+    def mean_and_se(k):
+        bm = k.reshape(-1, batch, k.shape[-1]).mean(1)
+        return bm.mean(0), bm.std(0, ddof=1) / np.sqrt(bm.shape[0])
+
+    (m_a, se_a), (m_b, se_b) = mean_and_se(a), mean_and_se(b)
+    z = np.abs(m_a - m_b) / np.sqrt(se_a ** 2 + se_b ** 2)
+    return float(np.max(z)), float(np.max(np.abs(m_a - m_b)))
+
+
+def check_gibbs_chains(ph, mesh):
+    """Chain-sharded Gibbs against the same chains on one device.  The two
+    programs draw the same random numbers, so their paths agree up to
+    rounding until a Polya-Gamma accept test lands on the other side of
+    a rounded value; from there the paths differ and only the posteriors
+    can be compared, within Monte-Carlo error."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    import agp_tpu as agp
+    from agp_tpu.models.mcgp import _gibbs_chains
+
+    nd = mesh.devices.size
+    C, S, burn, batch = 2 * nd, 1000, 200, 100
+    Xg = jax.random.normal(jax.random.PRNGKey(5), (256, 4), jnp.float32)
+    yg = np.asarray(jnp.sign(Xg[:, 0]))
+    mg = agp.MCGP.create(Xg, yg, agp.SqExponentialKernel(),
+                         agp.LogisticLikelihood.create(),
+                         agp.GibbsSampling(n_burnin=burn))
+    keys = jax.random.split(jax.random.PRNGKey(6), C)
+    keys_sh = jax.device_put(keys, NamedSharding(mesh, P("data")))
+    first = [np.asarray(_gibbs_chains(mg, k, 8, 0, 1)) for k in (keys_sh, keys)]
+    gap = np.max(np.abs(first[0] - first[1]), axis=(0, 2, 3))
+    ph.say("chain-sharded vs one-device paths, max |diff| of f at sweeps "
+           "1-8: " + ", ".join(f"{g:.2e}" for g in gap))
+    ph.check("first sweep, chain-sharded vs one-device f, max |diff|",
+             f"{gap[0]:.2e}", gap[0] <= 1e-3,
+             "<= 1e-3: same keys, so the draws differ by rounding only")
+
+    kept_sh = _gibbs_chains(mg, keys_sh, S, burn, 1)
+    kept_one = _gibbs_chains(mg, keys, S, burn, 1)
+    g_devs = {s.device for s in kept_sh.addressable_shards}
+    ph.check("devices holding Gibbs chains", len(g_devs), len(g_devs) == nd,
+             f"== {nd}")
+    a, b = np.asarray(kept_sh)[:, :, 0], np.asarray(kept_one)[:, :, 0]
+    apart = min(np.max(np.abs(a[i] - a[j]))
+                for i in range(C) for j in range(i + 1, C))
+    ph.check(f"{C} sharded chains, smallest max |diff| between two chains' "
+             "paths", f"{apart:.3f}", apart > 0.1, "> 0.1: every chain has "
+             "its own key")
+
+    z, gap = posterior_mean_z(a, b, batch)
+    ph.check(f"posterior means of f at {a.shape[-1]} points, chain-sharded "
+             "vs one device, max |diff| / Monte-Carlo standard error",
+             f"{z:.3f} (max |diff| {gap:.2e})", z <= MC_Z_LIMIT,
+             f"<= {MC_Z_LIMIT:g}: standard errors from batch means of "
+             f"{batch} sweeps, {C * S // batch} per run")
+
+
 def phase_multi(sz):
     """The sharded paths on every device, each against one device."""
     import jax
@@ -850,7 +1003,6 @@ def phase_multi(sz):
 
     import agp_tpu as agp
     from agp_tpu.inference.analytic_vi import variational_update
-    from agp_tpu.models.mcgp import _gibbs_chains
     from agp_tpu.parallel.mesh import make_mesh, sharded_svi_train, sharded_train
     from agp_tpu.reference import max_rel_err
     from agp_tpu.training.train import init_state
@@ -882,11 +1034,7 @@ def phase_multi(sz):
     ph.check("sharded vs one-device posterior predictive mean, correlation "
              "on 10,000 held-out points", f"{corr:.5f}", corr >= 0.99,
              ">= 0.99: the two training loops draw different minibatches")
-    data_devs = {s.device for s in jax.device_put(
-        jnp.asarray(Xtr[:nd * 8]), NamedSharding(mesh, P("data"))
-    ).addressable_shards}
-    ph.check("devices holding data shards", len(data_devs), len(data_devs) == nd,
-             f"== {nd}")
+    check_sharded_work(ph, m, Xtr, ytr, c, mesh, m1, s1)
 
     # full-batch GSPMD step: the same data on every path, so it must agree
     # with one device up to the order of the psum
@@ -929,27 +1077,7 @@ def phase_multi(sz):
     ph.check("devices holding the multiclass posterior", len(lat_devs),
              len(lat_devs) == nd, f"== {nd}")
 
-    # chain-sharded Gibbs
-    Xg = jax.random.normal(jax.random.PRNGKey(5), (256, 4), jnp.float32)
-    yg = np.asarray(jnp.sign(Xg[:, 0]))
-    mg = agp.MCGP.create(Xg, yg, agp.SqExponentialKernel(), agp.LogisticLikelihood.create(),
-                         agp.GibbsSampling(n_burnin=100))
-    keys = jax.random.split(jax.random.PRNGKey(6), nd)
-    kept_sh = _gibbs_chains(mg, jax.device_put(keys, NamedSharding(mesh, P("data"))),
-                            200, 100, 1)
-    kept_one = _gibbs_chains(mg, keys, 200, 100, 1)
-    # the sampler's accept/reject decisions turn rounding differences
-    # between the two compiled programs into different paths, so the check
-    # is on the posterior: chain-averaged means must agree
-    m_sh = np.asarray(jnp.mean(kept_sh, axis=(0, 1))).ravel()
-    m_one = np.asarray(jnp.mean(kept_one, axis=(0, 1))).ravel()
-    corr = float(np.corrcoef(m_sh, m_one)[0, 1])
-    ph.check(f"chain-sharded Gibbs vs one device, {nd} chains x 200 samples, "
-             "posterior-mean correlation", f"{corr:.5f}", corr >= 0.99,
-             ">= 0.99")
-    g_devs = {s.device for s in kept_sh.addressable_shards}
-    ph.check("devices holding Gibbs chains", len(g_devs), len(g_devs) == nd,
-             f"== {nd}")
+    check_gibbs_chains(ph, mesh)
     ph.close()
 
 

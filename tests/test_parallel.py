@@ -370,3 +370,98 @@ def test_sharded_svi_slice_sampling_trains(sampling):
 
     acc = float(jnp.mean(predict_y(m, s, jnp.asarray(X)) == jnp.asarray(y)))
     assert acc > 0.8
+
+
+def _flagship_like(inference):
+    X = np.random.RandomState(0).randn(2048, 4).astype(np.float32)
+    y = np.sign(X @ np.ones(4, np.float32))
+    m = agp.SVGP.create(
+        agp.SqExponentialKernel(lengthscale=jnp.float32(1.0), variance=jnp.float32(1.0)),
+        agp.LogisticLikelihood.create(), inference, jnp.asarray(X[:16]), optimiser=None,
+    )
+    return m, X, y
+
+
+@pytest.mark.parametrize("driver,want", [
+    ("sharded_svi", False), ("sharded_full_batch", False), ("one_device", True),
+])
+def test_triton_kernel_only_outside_gspmd(driver, want):
+    """Lowered for CUDA, the one-device step of an SVGP + logistic model
+    carries the Triton statistics kernel and the GSPMD steps do not: the
+    partitioner cannot split its custom call."""
+    from agp_tpu.parallel.mesh import (
+        _dp_steps, build_svi_trainer, make_mesh, replicate, shard_batch)
+    from agp_tpu.training.train import _vi_steps, init_state
+
+    full = driver == "sharded_full_batch"
+    m, X, y = _flagship_like(agp.AnalyticVI() if full else agp.AnalyticSVI(512))
+    mesh = make_mesh(8)
+    if driver == "sharded_svi":
+        steps, m, s, Xs, ys = build_svi_trainer(m, X, y, mesh)
+        traced = steps.trace(m, s, Xs, ys, 2)
+    elif full:
+        Xs, ys = shard_batch(mesh, X, y)
+        m, s = replicate(mesh, (m, init_state(m, Xs, ys)))
+        traced = _dp_steps.trace(m, s, Xs, ys, None, 2)
+    else:
+        Xd, yd = jnp.asarray(X), jnp.asarray(y)
+        traced = _vi_steps.trace(m, init_state(m, Xd, yd), Xd, yd, 2)
+    text = traced.lower(lowering_platforms=("cuda",)).as_text()
+    assert ("cavi_logistic_stats" in text) is want
+
+
+@pytest.mark.parametrize("program", ["sharded_svi_step", "statistics_psum", "gathered_batch"])
+def test_stray_collectives(program):
+    """chip_smoke's check that a sharded step moves only the [M] + [M, M]
+    statistics between devices: the compiled sharded SVI step and a bare
+    statistics contraction pass it; a program that gathers its sharded
+    batch onto every device fails it."""
+    import chip_smoke
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from agp_tpu.parallel.mesh import build_svi_trainer, make_mesh, shard_batch
+
+    mesh = make_mesh(8)
+    M = 16
+    if program == "sharded_svi_step":
+        m, X, y = _flagship_like(agp.AnalyticSVI(128))
+        steps, m, s, Xs, ys = build_svi_trainer(m, X, y, mesh)
+        hlo = steps.lower(m, s, Xs, ys, 2).compile().as_text()
+    else:
+        kappa = shard_batch(mesh, jax.random.normal(jax.random.PRNGKey(0), (512, M)))
+        theta = shard_batch(mesh, jax.random.uniform(jax.random.PRNGKey(1), (512,)))
+
+        def stats(k, t):
+            if program == "gathered_batch":
+                k = jax.lax.with_sharding_constraint(k, NamedSharding(mesh, P()))
+            return jnp.einsum("bm,b,bn->mn", k, t, k)
+
+        hlo = jax.jit(stats).lower(kappa, theta).compile().as_text()
+    assert chip_smoke.collectives(hlo), "no collective found: the mesh did not shard"
+    stray = chip_smoke.stray_collectives(hlo, M)
+    assert bool(stray) is (program == "gathered_batch"), stray
+
+
+@pytest.mark.parametrize("other,passes", [
+    ("the same samples", True), ("an independent run", True), ("shifted by 0.5", False),
+])
+def test_posterior_mean_z(other, passes):
+    """chip_smoke's Gibbs comparison: two runs of one posterior pass, a
+    run whose mean is off by a constant fails."""
+    import chip_smoke
+
+    rng = np.random.default_rng(0)
+
+    def run():  # 8 chains x 1000 AR(1) samples at 256 points
+        e = rng.standard_normal((8, 1000, 256))
+        f = np.empty_like(e)
+        f[:, 0] = e[:, 0]
+        for t in range(1, 1000):
+            f[:, t] = 0.9 * f[:, t - 1] + np.sqrt(1 - 0.81) * e[:, t]
+        return f
+
+    a = run()
+    b = {"the same samples": a, "an independent run": run(),
+         "shifted by 0.5": a + 0.5}[other]
+    z, _ = chip_smoke.posterior_mean_z(a, b, 100)
+    assert (z <= chip_smoke.MC_Z_LIMIT) is passes, z

@@ -211,7 +211,7 @@ def test_solver_defaults_do_not_depend_on_the_device(platform, monkeypatch):
         X = jnp.zeros((n, 2))
         mg = agp.MCGP.create(X, np.ones(n), agp.SqExponentialKernel(),
                              agp.LogisticLikelihood.create(), agp.GibbsSampling())
-        assert _use_cg_solver(mg) is (CG_MIN_N is not None and n >= CG_MIN_N)
+        assert _use_cg_solver(mg) is (n >= CG_MIN_N)
 
 
 def test_kappa_precision_names_an_explicit_algorithm(monkeypatch):
@@ -231,6 +231,20 @@ def _tf32_dot(a, b):
         return np.ldexp(np.round(m * 2.0**11) / 2.0**11, e)
 
     return rnd(a) @ rnd(b)
+
+
+@pytest.mark.parametrize("b,m", [(1, 16), (32, 1)])
+def test_f32_step_with_one_row_or_one_inducing_point(b, m):
+    """A one-row batch or a single inducing point makes kappa a
+    matrix-vector product, which runs in exact float32 on every backend."""
+    X = np.random.default_rng(0).standard_normal((200, 5)).astype(np.float32)
+    model = agp.SVGP.create(agp.SqExponentialKernel(), agp.LogisticLikelihood.create(),
+                            agp.AnalyticSVI(b), X[:m], optimiser=None)
+    assert (analytic_vi._kappa_precision(jnp.float32, b, m)
+            is jax.lax.DotAlgorithmPreset.F32_F32_F32)
+    _, state = agp.train(model, X, np.sign(X[:, 0]), iterations=3)
+    assert state.mu.dtype == jnp.float32
+    assert np.all(np.isfinite(np.asarray(state.mu)))
 
 
 def test_parity_check_catches_a_tf32_kappa():
